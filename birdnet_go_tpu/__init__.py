@@ -1,15 +1,15 @@
-"""birdnet_go_tpu — a TPU-native bioacoustic analysis framework.
+"""birdnet_go_tpu — a JAX bioacoustic analysis framework (GPU or CPU).
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of BirdNET-Go
+A from-scratch JAX/XLA rebuild of the capabilities of BirdNET-Go
 (reference: tphakala/birdnet-go): realtime + offline bird/bat sound
 identification with multi-model consensus, geographic range filtering,
-detection persistence and a serving API — designed for TPU from the start.
+detection persistence and a serving API, batched for an accelerator.
 
 Layering (bottom-up), mirroring the reference layer map (SURVEY.md §1):
 
 - ``ops``        — device numerics: fused audio front end (PCM→f32, polyphase
                    resample, overlapped window slicing, STFT/mel), sigmoid/top-K
-                   post-processing, Pallas kernels for the hot paths.
+                   post-processing.
 - ``models``     — model families re-expressed as jitted JAX graphs: BirdNET
                    v2.4, BirdNET v3.0, Google Perch v2, BattyBirdNET bat
                    two-stage, Geomodel range filters.

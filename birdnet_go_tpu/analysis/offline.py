@@ -1,7 +1,7 @@
 """Offline file analysis: WAV → windows → batched device inference → table.
 
 Behavior spec: doc/wiki/file-analysis.md (the reference's legacy `file`
-command, absent from the snapshot's cmd/ but required). TPU-first shape:
+command, absent from the snapshot's cmd/ but required). Batched shape:
 the whole file becomes fixed-size window batches, each batch one device
 step — a 120 s soundscape is 79 windows at default overlap, i.e. ONE step,
 vs the reference's serial per-window TFLite invokes (~8 s on a Pi).

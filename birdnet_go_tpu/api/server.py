@@ -956,11 +956,14 @@ class ApiServer(ExtendedHandlers, AuthHandlers, TerminalHandlers):
                       "spans": GLOBAL_SPANS.recent(limit)})
 
     async def h_inference_status(self, request):
+        import jax
+
+        backend = f"jax-{jax.default_backend()}"
         out = []
         for model_id, b in self.ctx.device_loop.batchers.items():
             out.append({
                 "model_id": model_id,
-                "backend": "jax-tpu",
+                "backend": backend,
                 "batch_size": b.max_batch,
                 "windows_processed": b.stats.windows_processed,
                 "last_latency_ms": b.stats.last_latency_ms,

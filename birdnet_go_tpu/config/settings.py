@@ -17,8 +17,6 @@ import os
 from pathlib import Path
 from typing import Any
 
-import yaml
-
 
 @dataclasses.dataclass
 class ModelSettings:
@@ -166,19 +164,17 @@ class RealtimeSettings:
     # back to tick_ms as tick busy time grows. 0/None = fixed tick.
     min_tick_ms: int = 15
     max_batch: int = 256              # device megabatch size per model
-    # store inter-block CNN activations as int8 in HBM: measured +2.8%
-    # step throughput on v5e (BENCH_r05 act8_boundaries), parity-gated
-    # (<0.02 post-sigmoid drift, top-5 stable — tests/test_quantized.py).
+    # store inter-block CNN activations as int8 in device memory,
+    # parity-gated (<0.02 post-sigmoid drift, top-5 stable —
+    # tests/test_quantized.py); speed on the current device not measured.
     # Default off: the north star is detection-table parity with the
     # TFLite reference, and the cast is lossy. Applies to native mel-CNN
     # families; imported (.tflite/.onnx) graphs ignore it.
     act_int8: bool = False
     # device batches a model may dispatch per tick (the steady-state
     # ceiling is max_batch × max_dispatches_per_tick per tick); >1 removes
-    # the round-2 one-batch-per-tick cap (VERDICT r2 #1). 11 puts the
-    # configured ceiling (42.2k streams) above the measured single-model
-    # kernel capacity (40.8k, BENCH r3) so the shipped config never caps
-    # the chip; ~79 ms device time per 100 ms tick at p50 7.2 ms/batch.
+    # the round-2 one-batch-per-tick cap. 11 puts the configured ceiling
+    # at 11 × 256 windows per 100 ms tick (42.2k realtime streams).
     max_dispatches_per_tick: int = 11
     pipeline_depth: int = 2           # in-flight device batches per model
 
@@ -646,6 +642,8 @@ def load_settings(path: str | Path | None = None,
     """YAML file → Settings, then env overrides, then validation."""
     s = Settings()
     if path:
+        import yaml     # only config files need it
+
         raw = yaml.safe_load(Path(path).read_text()) or {}
         s = _from_dict(Settings, raw)
     _apply_env_overrides(s, env if env is not None else dict(os.environ))

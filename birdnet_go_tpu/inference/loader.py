@@ -185,8 +185,7 @@ def apply_serving_options(model, realtime) -> None:
     """Apply config-driven serving options to a freshly loaded model.
 
     `realtime.act_int8` flips the int8 activation-boundary path on
-    mel-CNN families (models/base.py `act_int8`; measured +2.8% on v5e,
-    BENCH_r05 act8_boundaries). Models without the knob — imported
+    mel-CNN families (models/base.py `act_int8`). Models without the knob — imported
     .tflite/.onnx graphs, the geomodel — are left untouched."""
     if getattr(realtime, "act_int8", False) and hasattr(model, "act_int8"):
         model.act_int8 = True

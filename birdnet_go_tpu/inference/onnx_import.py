@@ -198,7 +198,7 @@ def _auto_pad_to_str(attrs, default="NOTSET"):
 
 class OnnxGraph:
     """params pytree + pure apply(params, *inputs). NCHW stays NCHW —
-    XLA's layout assignment handles TPU-friendly layouts internally."""
+    XLA's layout assignment picks device layouts internally."""
 
     def __init__(self, graph: OnnxGraphDef):
         self.graph = graph
@@ -856,8 +856,8 @@ def _build_ops():
         # QDQ quantization (the catalog's ARM64 INT8-ONNX variants,
         # model_registry.go remap). Faithful fake-quant numerics: the
         # QuantizeLinear→DequantizeLinear pairs reproduce the int8
-        # rounding while the surrounding ops execute in float (the TPU
-        # fast path — ARCHITECTURE.md "int8 quantization").
+        # rounding while the surrounding ops execute in float (the
+        # serving path — ARCHITECTURE.md "int8 quantization").
         "QuantizeLinear": _quantize_linear,
         "DequantizeLinear": _dequantize_linear,
         "Sin": _elementwise(jnp.sin),

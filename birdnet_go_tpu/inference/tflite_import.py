@@ -4,7 +4,7 @@ Replaces the reference's TFLite C interpreter + XNNPACK
 (internal/inference/tflite/classifier.go via go-tflite CGO) with a
 graph-to-JAX compiler: the .tflite graph is parsed once (no generated
 schema code — see flatbuf.py), weights land in a pytree, and the op
-sequence becomes a traced JAX function that XLA compiles for TPU.
+sequence becomes a traced JAX function that XLA compiles for the device.
 
 Field ids follow the public TFLite schema (tensorflow/lite/schema/
 schema.fbs). Supported ops cover the BirdNET/Perch CNN families:
@@ -160,9 +160,9 @@ def _dequantize_weights(data: np.ndarray, qt, shape: tuple) -> np.ndarray:
 
     Integer weight/bias tensors with QuantizationParameters become f32:
     (q - zero_point) * scale, per-channel along quantized_dimension when
-    the scale is a vector. On TPU the float graph IS the fast path (see
-    ARCHITECTURE.md "int8 quantization"), so quantized graphs execute at
-    float precision rather than emulating int8 arithmetic.
+    the scale is a vector. Quantized graphs execute at float precision
+    rather than emulating int8 arithmetic (the bf16/f32 graph is the
+    serving path; see ARCHITECTURE.md "int8 quantization").
     QuantizationParameters schema: min=0, max=1, scale=2, zero_point=3,
     details_type=4, details=5, quantized_dimension=6.
     """

@@ -300,7 +300,7 @@ def ha_discovery_payloads(base_topic: str = "birdnet",
         "identifiers": [node_id],
         "name": device_name,
         "manufacturer": "birdnet-tpu",
-        "model": "TPU bioacoustics server",
+        "model": "JAX bioacoustics server",
     }
     return {
         f"homeassistant/sensor/{node_id}/last_detection/config": {

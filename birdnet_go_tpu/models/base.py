@@ -2,7 +2,6 @@
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from birdnet_go_tpu.models.efficientnet import apply_efficientnet
@@ -16,11 +15,8 @@ class MelCnnModel:
     (EfficientNetConfig), compute_dtype.
     """
 
-    # None = auto: fused Pallas front end on TPU when the mel config is
-    # kernel-eligible (n_fft 2048, hop % 128 == 0, power spectrogram)
-    use_fused_frontend: bool | None = None
-    # store inter-block activations as int8 in HBM (measured experiment —
-    # see ARCHITECTURE's int8 decision log before enabling)
+    # store inter-block activations as int8 in device memory (lossy,
+    # parity-gated by tests/test_quantized.py; off by default)
     act_int8: bool = False
 
     def features(self, pcm: jnp.ndarray) -> jnp.ndarray:
@@ -32,31 +28,6 @@ class MelCnnModel:
         return apply_efficientnet(params, feats, self.net, train=train,
                                   compute_dtype=self.compute_dtype,
                                   act_int8=self.act_int8)
-
-    def _fused_ok(self) -> bool:
-        if self.use_fused_frontend is not None:
-            enabled = self.use_fused_frontend
-        else:
-            enabled = jax.devices()[0].platform != "cpu"
-        return (enabled and self.mel.n_fft == 2048
-                and self.mel.hop % 128 == 0 and self.mel.power == 2.0)
-
-    def apply_int16(self, params, pcm_i16: jnp.ndarray, train: bool = False):
-        """int16 PCM step: fused Pallas front end on TPU (mel computed in
-        VMEM; 1.5× the XLA path), XLA fallback elsewhere."""
-        if self._fused_ok():
-            from birdnet_go_tpu.ops.pallas_melspec import melspec_fused
-
-            # the kernel emits the CNN's compute dtype directly (halves
-            # the mel→backbone HBM round trip vs writing f32 then casting)
-            m = melspec_fused(pcm_i16, self.mel,
-                              out_dtype=self.compute_dtype)
-            feats = m[..., None]
-            return apply_efficientnet(params, feats, self.net, train=train,
-                                      compute_dtype=self.compute_dtype,
-                                      act_int8=self.act_int8)
-        pcm = pcm_i16.astype(jnp.float32) * (1.0 / 32768.0)
-        return self.apply(params, pcm, train)
 
     def __call__(self, params, pcm, train: bool = False):
         return self.apply(params, pcm, train)

@@ -71,27 +71,5 @@ class BatClassifier(MelCnnModel):
                                self.compute_dtype)
         return {"logits": logits.astype(jnp.float32), "embedding": emb}
 
-    def apply_int16(self, params, pcm_i16: jnp.ndarray, train: bool = False):
-        """Two-stage structure needs its own int16 path: the fused front
-        end feeds the embedding backbone, then the regional head."""
-        if self._fused_ok():
-            from birdnet_go_tpu.ops.pallas_melspec import melspec_fused
-
-            # emit the backbone's compute dtype directly (same HBM-traffic
-            # rationale as MelCnnModel.apply_int16)
-            m = melspec_fused(pcm_i16, self.mel,
-                              out_dtype=self.compute_dtype)
-            feats = m[..., None]
-            out = apply_efficientnet(params["backbone"], feats, self.net,
-                                     train=train,
-                                     compute_dtype=self.compute_dtype)
-            emb = out["embedding"]
-        else:
-            pcm = pcm_i16.astype(jnp.float32) * (1.0 / 32768.0)
-            emb = self.embed(params, pcm, train)
-        logits = L.apply_dense(params["head"], emb.astype(self.compute_dtype),
-                               self.compute_dtype)
-        return {"logits": logits.astype(jnp.float32), "embedding": emb}
-
     def __call__(self, params, pcm, train: bool = False):
         return self.apply(params, pcm, train)

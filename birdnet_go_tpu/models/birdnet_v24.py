@@ -2,8 +2,8 @@
 
 The reference loads this as an embedded TFLite flatbuffer and feeds raw
 float32 PCM (internal/classifier/birdnet.go:71-121, analyze.go:25-110). Here
-the model is a native JAX graph: mel front end (ops.melspec, or the fused
-Pallas kernel on TPU) + EfficientNet-B0 class CNN; parameters come from the
+the model is a native JAX graph: mel front end (ops.melspec) +
+EfficientNet-B0 class CNN; parameters come from the
 TFLite importer (birdnet_go_tpu.inference.tflite_import) or fresh
 initialization.
 """
@@ -27,8 +27,9 @@ class BirdNETv24(MelCnnModel):
     """Functional model wrapper: `init(key) -> params`, `apply(params, pcm)`.
 
     `apply` takes float32 PCM [B, 144000] in [-1, 1] and returns
-    {"logits": [B, 6522], "embedding": [B, 1280]}; `apply_int16` is the
-    production int16 step (fused front end on TPU).
+    {"logits": [B, 6522], "embedding": [B, 1280]}. The realtime step
+    (scheduler.loop.ModelBatcher) converts int16 PCM on device and calls
+    `apply`.
     """
 
     spec = registry.BIRDNET_V24

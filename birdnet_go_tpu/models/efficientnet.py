@@ -7,7 +7,7 @@ a stem conv, a schedule of MBConv stages, a 1×1 head conv, global average
 pool → embedding, and a dense classifier head.
 
 Layout is NHWC with H=time frames, W=mel bands, C=channels; compute dtype
-bfloat16 (MXU native) with f32 accumulation.
+bfloat16 (tensor-core native) with f32 accumulation.
 """
 
 from __future__ import annotations
@@ -92,14 +92,14 @@ _ACT_INT8_SCALE = 8.0 / 127.0
 
 
 def _int8_boundary(h, compute_dtype):
-    """Store an inter-block activation as int8 in HBM (VERDICT r4 #6b).
+    """Store an inter-block activation as int8 in device memory.
 
     Quantize fuses into the producer block's epilogue, the dequantize into
     the consumer conv's prologue; the optimization_barrier pins the
-    materialized HBM buffer to the int8 tensor (without it XLA may fuse
-    quant→dequant away and keep the bf16 buffer). Halves boundary-tensor
-    HBM bytes on a stack the roofline says is HBM-bound
-    (docs/ARCHITECTURE.md "Throughput anatomy")."""
+    materialized buffer to the int8 tensor (without it XLA may fuse
+    quant→dequant away and keep the bf16 buffer). Halves the bytes of
+    every boundary tensor; whether that pays depends on the backbone being
+    memory-bound, which is not measured on the current device."""
     inv = jnp.asarray(1.0 / _ACT_INT8_SCALE, compute_dtype)
     q = jnp.clip(jnp.round(h * inv), -127, 127).astype(jnp.int8)
     q = jax.lax.optimization_barrier(q)
@@ -109,41 +109,23 @@ def _int8_boundary(h, compute_dtype):
 
 def apply_efficientnet(params, x, cfg: EfficientNetConfig, train: bool = False,
                        compute_dtype=jnp.bfloat16,
-                       fused_blocks: bool = False,
                        act_int8: bool = False):
     """x: [B, T, M, C] mel spectrogram → {"logits": [B, S], "embedding": [B, E]}.
 
-    fused_blocks=True routes eligible stride-1 MBConv blocks through the
-    Pallas two-kernel path (ops/pallas_mbconv.py) — TPU only; the XLA
-    path is the reference semantics either way.
-
     act_int8=True stores every inter-block activation (stem output and
-    each MBConv block output) as int8 in HBM — the last untried byte-width
-    lever on the HBM-bound backbone (measured: see ARCHITECTURE's int8
-    decision log). Inference only; lossy (bounded by the parity test)."""
+    each MBConv block output) as int8 in device memory. Inference only;
+    lossy (bounded by tests/test_quantized.py)."""
     h = L.swish(L.apply_bn(params["stem_bn"],
                            L.apply_conv(params["stem_conv"], x, stride=2,
                                         compute_dtype=compute_dtype), train))
     if act_int8 and not train:
         h = _int8_boundary(h, compute_dtype)
-    if fused_blocks:
-        from birdnet_go_tpu.ops.pallas_mbconv import (
-            fused_block_ok,
-            mbconv_fused,
-        )
     i = 0
     for b in cfg.blocks:
         for r in range(b.repeats):
             stride = b.stride if r == 0 else 1
-            if (fused_blocks
-                    and fused_block_ok(stride, h.shape[1], h.shape[2],
-                                       train)):
-                h = mbconv_fused(params["blocks"][i], h, kernel=b.kernel,
-                                 compute_dtype=compute_dtype)
-            else:
-                h = L.apply_mbconv(params["blocks"][i], h, stride=stride,
-                                   train=train,
-                                   compute_dtype=compute_dtype)
+            h = L.apply_mbconv(params["blocks"][i], h, stride=stride,
+                               train=train, compute_dtype=compute_dtype)
             if act_int8 and not train:
                 h = _int8_boundary(h, compute_dtype)
             i += 1

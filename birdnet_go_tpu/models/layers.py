@@ -1,8 +1,8 @@
-"""Minimal functional NN layer library (param pytrees, NHWC, MXU-first).
+"""Minimal functional NN layer library (param pytrees, NHWC).
 
-Design rules for TPU:
-- NHWC activations / HWIO weights — XLA's preferred conv layout on TPU;
-- compute dtype bfloat16 by default (MXU native), params float32, f32
+Design rules:
+- NHWC activations / HWIO weights;
+- compute dtype bfloat16 by default (tensor-core native), params float32, f32
   accumulation via preferred_element_type;
 - BatchNorm is algebraically folded into a scale/offset pair at inference so
   it fuses into the conv epilogue; training mode uses batch statistics;
@@ -38,10 +38,9 @@ def init_conv(key, kh, kw, cin, cout, groups: int = 1) -> Params:
 def apply_conv(p: Params, x, stride=1, groups: int = 1, padding="SAME",
                compute_dtype=jnp.bfloat16):
     s = (stride, stride) if isinstance(stride, int) else stride
-    # f32 MXU accumulation, but the materialized activation is
-    # compute_dtype: the backbone is HBM-bound (see ARCHITECTURE.md
-    # throughput anatomy), and f32 buffers between convs double the
-    # traffic for no accuracy the bf16 CNN can use.
+    # f32 accumulation, but the materialized activation is
+    # compute_dtype: f32 buffers between convs would double the
+    # device-memory traffic for no accuracy the bf16 CNN can use.
     return jax.lax.conv_general_dilated(
         x.astype(compute_dtype), p["w"].astype(compute_dtype),
         window_strides=s, padding=padding,

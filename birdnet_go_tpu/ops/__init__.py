@@ -3,7 +3,7 @@
 The reference feeds raw float32 PCM into TFLite/ONNX graphs that embed their
 own mel front ends (reference: internal/classifier/analyze.go:61,
 internal/inference/tflite/classifier.go:96-110). Here the front end is
-externalized and expressed TPU-first: framing/STFT/mel as MXU matmuls,
+externalized as batched XLA ops: framing/STFT/mel as matmuls (or an rFFT),
 polyphase resampling as dilated convolution, int16→f32 conversion fused in.
 """
 

@@ -1,20 +1,22 @@
-"""Mel-spectrogram front end, expressed as MXU-friendly matmuls.
+"""Mel-spectrogram front end in plain jax.numpy (two XLA routes for the DFT).
 
 The reference's models embed their own spectrogram front ends inside the
 TFLite/ONNX graphs (SURVEY.md §2.8 note; internal/classifier/analyze.go:61
-feeds raw PCM). Here the front end is externalized so one fused kernel serves
-both inference and live spectrogram rendering (reference north star;
+feeds raw PCM). Here the front end is externalized so one op serves both
+inference and live spectrogram rendering (reference north star;
 internal/spectrogram/* uses SoX/FFmpeg subprocesses instead).
 
-TPU mapping:
 - framing: a static gather (indices precomputed at trace time — no dynamic
   shapes under jit);
-- DFT: real FFT via a two-stage Cooley–Tukey *matmul* decomposition (radix
-  split n_fft = A×B) so the FLOPs land on the MXU instead of scalar FFT
-  butterflies — O(n·(A+B)) per frame instead of the naive O(n²) DFT matmul;
-  falls back to jnp.fft.rfft when configured;
-- mel projection: one [n_bins → n_mels] matmul (MXU);
-- log/power: elementwise (VPU), fused by XLA into the surrounding matmuls.
+- DFT, route chosen by `MelConfig.use_matmul_fft`:
+  - True (default): a two-stage Cooley–Tukey *matmul* decomposition
+    (radix split n_fft = A×B), O(n·(A+B)) per frame instead of the naive
+    O(n²) DFT matmul; every stage is a float32 einsum at
+    `Precision.HIGHEST`;
+  - False: `jnp.fft.rfft` (cuFFT on the GPU);
+- mel projection: one [n_bins → n_mels] matmul at the backend's default
+  float32 precision (TF32 is allowed on GPUs that have it);
+- log/power: elementwise, fused by XLA into the surrounding ops.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ class MelConfig:
     window: str = "hann"           # "hann" | "hamming" | "rect"
     log_offset: float = 1e-6
     power: float = 2.0             # 2.0 = power spectrogram, 1.0 = magnitude
-    use_matmul_fft: bool = True    # two-stage matmul DFT on MXU vs jnp.fft.rfft
+    use_matmul_fft: bool = True    # two-stage matmul DFT vs jnp.fft.rfft
     mag_scale: str = "log"         # "log" | "db" | "linear" | "nonlinear"
 
     @property
@@ -123,8 +125,8 @@ def frame_signal(x: jnp.ndarray, cfg: MelConfig) -> jnp.ndarray:
 #   X[r + A·j] = sum_b s[r, b] · W_N^{(r+A·j) b}
 # i.e. for each r a [B]×[B, J] matmul — a batched einsum with no
 # materialized [K, B] intermediate. Cost per frame ≈ N·(A + B/2) mults vs
-# N²/2 for the naive DFT matmul (16× fewer at N=2048), and everything tiles
-# onto the MXU. Output lands in the permuted (r, j) layout; consumers either
+# N²/2 for the naive DFT matmul (16× fewer at N=2048), and every stage is a
+# dense matrix product. Output lands in the permuted (r, j) layout; consumers either
 # permute back (tests) or pre-permute the mel filterbank rows (melspec).
 # ---------------------------------------------------------------------------
 
@@ -142,19 +144,10 @@ def _choose_radix(n: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=16)
-def _rdft_matmul_consts(n_fft: int, a_sz: int | None = None):
-    """Precompute DFT constants: stage-1 [A,A], stage-2 [A,B,J], bin map.
-
-    `a_sz` overrides the radix split (the Pallas kernel uses A=16 so
-    B=128 matches the TPU lane width; the XLA path uses the FLOP-minimal
-    split).
-    """
-    if a_sz is not None:
-        if n_fft % a_sz:
-            raise ValueError(f"{a_sz} does not divide n_fft={n_fft}")
-        b_sz = n_fft // a_sz
-    else:
-        a_sz, b_sz = _choose_radix(n_fft)
+def _rdft_matmul_consts(n_fft: int):
+    """Precompute DFT constants: stage-1 [A,A], stage-2 [A,B,J], bin map,
+    for the FLOP-minimal radix split."""
+    a_sz, b_sz = _choose_radix(n_fft)
     k_out = n_fft // 2 + 1
     j_sz = (k_out - 1) // a_sz + 1          # bins per residue group (padded)
     aa = np.arange(a_sz)
@@ -227,8 +220,7 @@ def _spectrum(frames: jnp.ndarray, cfg: MelConfig) -> jnp.ndarray:
 
 @functools.lru_cache(maxsize=32)
 def _mel_filterbank_permuted_np(sample_rate: int, n_fft: int, n_mels: int,
-                                fmin: float, fmax: float,
-                                a_sz: int | None = None) -> np.ndarray:
+                                fmin: float, fmax: float) -> np.ndarray:
     """Mel filterbank with rows permuted into the (r, j) DFT output layout.
 
     fb_perm[r·J + j, m] = fb[r + A·j, m] (0 for padded positions), so
@@ -236,7 +228,7 @@ def _mel_filterbank_permuted_np(sample_rate: int, n_fft: int, n_mels: int,
     permutation is absorbed into a constant matrix instead of a gather.
     """
     fb = _mel_filterbank_np(sample_rate, n_fft, n_mels, fmin, fmax)
-    *_, bin_of, a_sz, b_sz, j_sz = _rdft_matmul_consts(n_fft, a_sz)
+    *_, bin_of, a_sz, b_sz, j_sz = _rdft_matmul_consts(n_fft)
     out = np.zeros((a_sz * j_sz, n_mels), np.float32)
     rr, jj = np.nonzero(bin_of >= 0)
     out[rr * j_sz + jj] = fb[bin_of[rr, jj]]

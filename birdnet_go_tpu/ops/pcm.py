@@ -14,7 +14,7 @@ _INT16_SCALE = 32768.0
 
 
 def pcm16_to_float32(pcm: jnp.ndarray) -> jnp.ndarray:
-    """int16 PCM → float32 in [-1, 1). Accepts any shape; elementwise (VPU)."""
+    """int16 PCM → float32 in [-1, 1). Accepts any shape; elementwise."""
     return pcm.astype(jnp.float32) * (1.0 / _INT16_SCALE)
 
 

@@ -7,9 +7,9 @@ Reference contracts:
 - range filter: per-species occurrence gating applied before thresholds
   (internal/analysis/processor/processor.go:1011).
 
-All ops are jittable and batched — on TPU the 6,523-wide (or 14,795-wide
-Perch) confidence vector is tiny; the win is doing sigmoid+top-K on device so
-only [B, K] indices/scores cross PCIe back to the host.
+All ops are jittable and batched — the 6,523-wide (or 14,795-wide Perch)
+confidence vector is tiny; the win is doing sigmoid+top-K on device so only
+[B, K] indices/scores cross PCIe back to the host.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ def top_k_results(confidence: jnp.ndarray, k: int = 10
                   ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """[..., S] confidences → (values [..., k], indices [..., k]), sorted desc.
 
-    Mirrors getTopKResults (quickselect K=10 in the reference) — on TPU,
+    Mirrors getTopKResults (quickselect K=10 in the reference) —
     jax.lax.top_k over the species axis.
     """
     return jax.lax.top_k(confidence, k)

@@ -1,10 +1,9 @@
 """Post-training int8 quantization for the EfficientNet backbone.
 
-The TPU analogue of the reference's INT8 model variants (model
-registry ARM64 INT8-ONNX remap, internal/classifier/model_registry.go):
-v5e's MXU runs int8 at twice the bf16 rate AND int8 activations halve
-the HBM traffic that bounds the MBConv stack (see ARCHITECTURE.md
-"Throughput anatomy"). Scheme:
+The analogue of the reference's INT8 model variants (model registry
+ARM64 INT8-ONNX remap, internal/classifier/model_registry.go): int8
+matrix units can run at twice the bf16 rate, and int8 activations halve
+the bytes moved between MBConv layers. Scheme:
 
 - weights: symmetric per-output-channel int8 (BN folded first, so the
   quantized conv directly produces the normalized pre-activation);
@@ -15,20 +14,14 @@ the HBM traffic that bounds the MBConv stack (see ARCHITECTURE.md
   TFLite PTQ artifacts);
 - each conv runs int8 x int8 -> int32, then a fused f32 epilogue
   (dequant -> bias -> swish -> requant) that XLA folds into the
-  convolution, so only int8 ever lands in HBM between layers;
+  convolution, so only int8 ever lands in device memory between layers;
 - SE blocks and the classifier head stay in f32/bf16 (tiny tensors).
 
 Accuracy contract: top-K parity is validated against the f32 model
 (tests/test_quantized.py).
 
-Production status (measured, BENCH_r03/r04): the int8 BACKBONE is a
-negative on TPU — XLA's conv lowering upcasts instead of hitting the
-MXU's 2x int8 rate (speedup ~0.3x), so bf16 stays the serving path and
-this module is kept as the artifact-compat/CPU-edge path plus the
-benchmark's honest negative leg. The int8 FC HEADS (below) are a
-measured +17% on the head Gemms via a plain int8 dot — real but ~0.2%
-of the whole step, so they are likewise not wired into serving; the
-bench's int8_heads leg records the result each round.
+Production status: not wired into serving; bf16 is the serving path.
+Its speed on the current accelerator is not measured.
 """
 
 from __future__ import annotations
@@ -253,13 +246,11 @@ def apply_efficientnet_int8(q: dict, mel: jnp.ndarray, cfg) -> dict:
 
 
 def quantize_dense_head(p: dict, calib_x: np.ndarray | None = None) -> dict:
-    """Quantize ONE dense classifier head for int8 MXU execution.
+    """Quantize ONE dense classifier head for int8 matrix execution.
 
-    The r3 bench showed XLA's TPU lowering of int8 *convolutions* misses
-    the MXU's 2x int8 rate (BENCH_r03 int8_ptq note) — but the FC heads
-    (BirdNET v2.4's 1280x6522 classifier, Perch's 1280x14795 Gemm) are
-    plain dots where `lax.dot_general(int8, int8) -> int32` does hit it
-    (VERDICT r3 #3). Weights get per-output-channel symmetric scales;
+    The FC heads (BirdNET v2.4's 1280x6522 classifier, Perch's
+    1280x14795 Gemm) are plain dots, which `lax.dot_general(int8, int8)
+    -> int32` expresses directly. Weights get per-output-channel symmetric scales;
     activations are quantized DYNAMICALLY per row at runtime (TFLite
     dynamic-range-quantization semantics), so no activation calibration
     is needed — `calib_x` is accepted for API symmetry and ignored.

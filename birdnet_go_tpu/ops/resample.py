@@ -1,4 +1,4 @@
-"""Polyphase resampling as dilated convolution (MXU/VPU path).
+"""Polyphase resampling as dilated convolution.
 
 The reference resamples on the host with a SIMD polyphase library
 (internal/audiocore/resample/resample.go:45; github.com/tphakala/
@@ -67,8 +67,7 @@ def polyphase_resample(x: jnp.ndarray, cfg: ResampleConfig) -> jnp.ndarray:
 
     Implemented as one dilated conv: insert L−1 zeros (lhs_dilation), FIR
     low-pass, take every M-th output (window_strides). XLA lowers this to
-    an implicit polyphase structure — zero multiplications by the inserted
-    zeros survive compilation on TPU.
+    an implicit polyphase structure.
     """
     l, m = cfg.ratio
     if l == 1 and m == 1:

@@ -2,7 +2,7 @@
 
 Reference: internal/audiocore/soundlevel/processor.go:41-440 — per-interval
 RMS in 1/3-octave bands (IEC 61260 center frequencies), published to SSE/
-MQTT/metrics. TPU-first shape: band energies come from the same spectrum
+MQTT/metrics. Batched shape: band energies come from the same spectrum
 the mel front end computes — one rFFT power spectrum → triangular-ish band
 masks → dB levels, batched over streams.
 """

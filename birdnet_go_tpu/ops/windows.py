@@ -3,7 +3,7 @@
 The reference's AnalysisBuffer yields one window per ClipLength/2 of fresh
 audio (50% default overlap; user overlap 0–2.9 s on the 3 s base scales per
 model — internal/classifier/model.go:40-54, internal/analysis/overlap.go:8).
-For offline/batched analysis the TPU equivalent slices a whole signal into
+For offline/batched analysis the device-side equivalent slices a whole signal into
 [W, window_samples] with a static gather, so hundreds of windows per file
 become one batched model step.
 """

@@ -9,7 +9,7 @@ collectives.
 
 `ShardedClassifier` wraps a model the same way JaxClassifier does, so the
 scheduler's ModelBatcher works unchanged — only params/input placement
-differs. The driver's dryrun validates this path on virtual devices.
+differs: ModelBatcher places each megabatch with `input_sharding`.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ class ShardedClassifier:
         self.model_id = model.spec.model_id
         self.num_species = model.num_species
         self.params = shard_params(params, self.mesh)
-        self._batch_sharding = batch_sharding(self.mesh)
+        self.input_sharding = batch_sharding(self.mesh)
         self._replicated = NamedSharding(self.mesh, P())
         self._range_mask = (
             jax.device_put(jnp.asarray(range_mask, jnp.float32),
@@ -75,7 +75,7 @@ class ShardedClassifier:
         if rem:
             pcm = np.concatenate(
                 [pcm, np.zeros((rem, *pcm.shape[1:]), pcm.dtype)])
-        return jax.device_put(jnp.asarray(pcm), self._batch_sharding)
+        return jax.device_put(jnp.asarray(pcm), self.input_sharding)
 
     def predict_topk(self, pcm: np.ndarray, sensitivity: float = 1.0,
                      k: int = 10) -> tuple[np.ndarray, np.ndarray]:

@@ -17,7 +17,7 @@ snapshot + restore), internal/diskmanager (clip↔DB reconcile),
 species_tracker InitFromDatabase (first-seen resync).
 
 Run: BIRDNET_TPU_PLATFORM=cpu python -m birdnet_go_tpu.scheduler.crashleg \
-         --streams 1000 --out SOAK_r05.json
+         --streams 1000 --out crashleg.json
 """
 
 from __future__ import annotations

@@ -65,8 +65,7 @@ class WindowDataset:
                 yield self.windows[order], labels_1h[order]
                 continue
             # full batches only: the jitted train step compiles per input
-            # SHAPE, and a ragged tail batch would trigger a multi-minute
-            # remote XLA recompile on TPU (CLAUDE.md: reuse shapes)
+            # SHAPE, and a ragged tail batch would trigger a recompile
             for start in range(0, n - batch_size + 1, batch_size):
                 idx = order[start:start + batch_size]
                 yield self.windows[idx], labels_1h[idx]

@@ -38,13 +38,9 @@ class HttpClient:
 
     def __init__(self, timeout: float = DEFAULT_TIMEOUT,
                  user_agent: str | None = None, session=None):
-        import httpx
-
         self.user_agent = user_agent or default_user_agent()
         self.timeout = timeout
-        self.session = session or httpx.Client(
-            timeout=timeout, follow_redirects=True,
-            headers={"User-Agent": self.user_agent})
+        self._session = session
         self._lock = threading.Lock()
         self.before_request: Callable[[str, str], None] | None = None
         self.after_response: Callable[[str, str, int, float], None] | None \
@@ -53,6 +49,19 @@ class HttpClient:
         self.requests = 0
         self.errors = 0
         self.by_host: dict[str, int] = {}
+
+    @property
+    def session(self):
+        """The pooled httpx client, created on first use: a node that
+        never calls out does not need httpx installed."""
+        with self._lock:
+            if self._session is None:
+                import httpx
+
+                self._session = httpx.Client(
+                    timeout=self.timeout, follow_redirects=True,
+                    headers={"User-Agent": self.user_agent})
+            return self._session
 
     # -- core ---------------------------------------------------------------------
 
@@ -111,7 +120,8 @@ class HttpClient:
                     "by_host": dict(self.by_host)}
 
     def close(self) -> None:
-        self.session.close()
+        if self._session is not None:
+            self._session.close()
 
 
 _shared: HttpClient | None = None

@@ -1,4 +1,4 @@
-// birdnet_host: native host data plane for the TPU pipeline.
+// birdnet_host: native host data plane for the device pipeline.
 //
 // Replaces the reference's native host components (SURVEY.md §2.8):
 //  - malgo/miniaudio CGO capture  -> ALSA capture via dlopen(libasound)

@@ -386,6 +386,8 @@ BN_API int64_t bn_mp3_encode(const int16_t* pcm, int64_t n_frames, int rate,
 // carry over across calls so live HLS segments join without encoder resets.
 // ---------------------------------------------------------------------------
 
+#if __has_include(<libavcodec/avcodec.h>)
+
 extern "C" {
 #include <libavcodec/avcodec.h>
 #include <libavutil/channel_layout.h>
@@ -863,3 +865,28 @@ BN_API void bn_aac_decoder_destroy(void* handle) {
     l.free_context(&d->ctx);
     delete d;
 }
+
+#else  // built without FFmpeg's headers: AAC reports unavailable and the
+       // Python layer falls back to FLAC, as on a host without libavcodec
+
+BN_API int bn_aac_available() { return 0; }
+BN_API void* bn_aac_stream_create(int, int, int, unsigned char*, int32_t,
+                                  int32_t*) { return nullptr; }
+BN_API int64_t bn_aac_stream_encode(void*, const int16_t*, int64_t,
+                                    unsigned char*, int64_t, int32_t*) {
+    return -1;
+}
+BN_API int64_t bn_aac_stream_flush(void*, unsigned char*, int64_t,
+                                   int32_t*) { return -1; }
+BN_API int32_t bn_aac_stream_delay(void*) { return 0; }
+BN_API void bn_aac_stream_destroy(void*) {}
+BN_API int64_t bn_aac_decode(const unsigned char*, int64_t,
+                             const unsigned char*, int32_t, int, int,
+                             int16_t*, int64_t) { return -1; }
+BN_API void* bn_aac_decoder_create(const unsigned char*, int32_t, int,
+                                   int) { return nullptr; }
+BN_API int64_t bn_aac_decoder_decode(void*, const unsigned char*, int64_t,
+                                     int16_t*, int64_t) { return -1; }
+BN_API void bn_aac_decoder_destroy(void*) {}
+
+#endif

@@ -52,6 +52,7 @@
 #include <new>
 #include <random>
 #include <string>
+#include <system_error>
 #include <thread>
 #include <unordered_map>
 #include <vector>

@@ -31,6 +31,7 @@
 #include <mutex>
 #include <new>
 #include <random>
+#include <system_error>
 #include <thread>
 #include <vector>
 

@@ -264,13 +264,13 @@ def test_terminal_ws_pty_roundtrip(served):
         async with aiohttp.ClientSession() as sess:
             async with sess.ws_connect(
                     f"http://127.0.0.1:{port}/api/v2/system/ws") as ws:
-                await ws.send_str("echo tpu$((40+2))\n")
+                await ws.send_str("echo bn$((40+2))\n")
                 buf = ""
                 for _ in range(60):
                     msg = await ws.receive(timeout=5)
                     if msg.type == aiohttp.WSMsgType.BINARY:
                         buf += msg.data.decode(errors="replace")
-                    if "tpu42" in buf:
+                    if "bn42" in buf:
                         return True
                 return False
 

@@ -1,8 +1,8 @@
 """Forward-shape and numeric-sanity tests for the model families.
 
 Full-size models are slow on the CPU test platform, so these use shrunken
-block schedules / species counts; full-size compile is exercised on TPU by
-bench.py and __graft_entry__.entry().
+block schedules / species counts; full-size compile is exercised on the GPU
+by chip_smoke.py and bench.py.
 """
 
 import numpy as np

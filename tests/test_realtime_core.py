@@ -447,10 +447,8 @@ def test_harvest_ready_is_nonblocking_and_ordered():
 
 def test_model_batcher_ready_probe_real_device():
     """ModelBatcher._ready uses jax.Array.is_ready(): eventually True
-    after dispatch (CPU backend), and gated off by
-    BIRDNET_TPU_EAGER_HARVEST=0."""
-    import os
-
+    after dispatch (CPU backend), and a finished batch is harvested by
+    harvest_ready() without blocking."""
     clf = _TinyClassifier()
     out = []
     b = ModelBatcher(clf, max_batch=2, top_k=2,
@@ -464,13 +462,11 @@ def test_model_batcher_ready_probe_real_device():
     assert len(out) == 1                 # probe turned True, fan-out ran
     b.offer(np.zeros(144000, np.int16), "s", 1.0)
     b.dispatch()
-    os.environ["BIRDNET_TPU_EAGER_HARVEST"] = "0"
-    try:
-        assert b._ready(b._inflight[0][0]) is None   # probe disabled
-        assert b.harvest_ready() == 0                # falls back to depth
-    finally:
-        del os.environ["BIRDNET_TPU_EAGER_HARVEST"]
-    b.harvest_all()
+    handle = b._inflight[0][0]
+    jax.block_until_ready(handle[:2])
+    assert b._ready(handle) is True
+    assert b.harvest_ready() == 1 and len(out) == 2
+    assert b.inflight_depth == 0
 
 
 def test_device_loop_adaptive_cadence():

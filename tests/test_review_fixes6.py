@@ -54,7 +54,7 @@ def test_dataset_batches_small_dataset_still_trains():
     assert len(batches) == 2                      # one short batch per epoch
     assert all(len(x) == 12 for x, y in batches)
     # larger datasets keep FULL batches only (a ragged tail would add a
-    # second XLA graph shape → minutes of remote recompile on TPU)
+    # second XLA graph shape → a recompile)
     batches = list(ds.batches(batch_size=5, epochs=1))
     assert [len(x) for x, _ in batches] == [5, 5]
 

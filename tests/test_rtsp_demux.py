@@ -132,7 +132,7 @@ def test_soak_rtsp_ingest_mode_end_to_end():
     """`soak --ingest rtsp` at CI scale: real TCP/RTSP sessions through
     the consolidated demux feed the production scheduler → processor →
     datastore, with measured demux CPU and zero unaccounted loss — the
-    wiring the 500-stream SOAK_r05 leg scales up."""
+    wiring a 500-stream soak leg scales up."""
     from birdnet_go_tpu.scheduler.soak import run_soak
 
     rec = run_soak(streams=8, seconds=6.0, ingest="rtsp",
@@ -156,6 +156,8 @@ def test_soak_rtsp_mode_rejects_multi_model_and_tpu():
     with pytest.raises(ValueError):
         run_soak(streams=4, seconds=1.0, ingest="rtsp",
                  models=("BirdNET_V2.4", "Perch_V2"))
+    with pytest.raises(ValueError):
+        run_soak(streams=4, seconds=1.0, ingest="rtsp", device="device")
     with pytest.raises(ValueError):
         run_soak(streams=4, seconds=1.0, ingest="nope")
 
